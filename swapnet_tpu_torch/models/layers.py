@@ -72,6 +72,29 @@ def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
     return F.pad(x, (pad, pad, pad, pad), mode="reflect")
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask comes from an explicit ``torch.Generator``, never
+    from torch's global RNG, as flax's ``nn.Dropout`` takes an explicit key.
+
+    In training each element is kept with probability 1 - p (the mask is
+    ``torch.rand(..., generator=g) < 1 - p``) and scaled by 1 / (1 - p);
+    in eval mode, or with p = 0, it is the identity.  Training without a
+    generator raises.
+    """
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or not self.p:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training needs an explicit torch.Generator")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Conv(nn.Module):
     """nn.Conv2d(in_ch, features, kernel_size, stride, padding) computed in
     ``dtype``; weight (O, I, kh, kw), bias (O,)."""
@@ -152,13 +175,13 @@ class UNetDown(nn.Module):
         self.normalize = normalize
         self.Conv_0 = Conv(in_ch, out_ch, 4, 2, 1, use_bias=False, init_type=init_type,
                            init_gain=init_gain, dtype=dtype, generator=generator)
-        self.dropout = nn.Dropout(dropout) if dropout else nn.Identity()
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.Conv_0(x)
         if self.normalize:
             x = instance_norm(x)
-        return self.dropout(leaky_relu(x, 0.2))
+        return self.dropout(leaky_relu(x, 0.2), generator)
 
 
 class UNetUp(nn.Module):
@@ -172,10 +195,11 @@ class UNetUp(nn.Module):
         self.ConvTranspose_0 = ConvTranspose(
             in_ch, out_ch, 4, 2, 1, use_bias=False, init_type=init_type,
             init_gain=init_gain, dtype=dtype, generator=generator)
-        self.dropout = nn.Dropout(dropout) if dropout else nn.Identity()
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.dropout(torch.relu(instance_norm(self.ConvTranspose_0(x))))
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.dropout(torch.relu(instance_norm(self.ConvTranspose_0(x))), generator)
         return x if skip is None else torch.cat([x, skip], dim=1)
 
 
@@ -189,8 +213,8 @@ class DualUNetUp(nn.Module):
         super().__init__()
         self.UNetUp_0 = UNetUp(in_ch, out_ch, dropout, init_type, init_gain, dtype, generator)
 
-    def forward(self, x, skip1, skip2):
-        return torch.cat([self.UNetUp_0(x), skip1, skip2], dim=1)
+    def forward(self, x, skip1, skip2, generator: Optional[torch.Generator] = None):
+        return torch.cat([self.UNetUp_0(x, generator=generator), skip1, skip2], dim=1)
 
 
 class ResidualBlock(nn.Module):
@@ -205,10 +229,10 @@ class ResidualBlock(nn.Module):
                   init_gain=init_gain, dtype=dtype, generator=generator)
         self.Conv_0 = Conv(ch, ch, **kw)
         self.Conv_1 = Conv(ch, ch, **kw)
-        self.dropout = nn.Dropout(dropout) if dropout else nn.Identity()
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.dropout(torch.relu(instance_norm(self.Conv_0(reflect_pad(x)))))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.dropout(torch.relu(instance_norm(self.Conv_0(reflect_pad(x)))), generator)
         y = instance_norm(self.Conv_1(reflect_pad(y)))
         return x + y
 

@@ -47,6 +47,7 @@ class TextureModule(nn.Module):
         input_tex: torch.Tensor,  # (B, texture_channels, H, W)
         rois: torch.Tensor,  # (B, num_roi, 4) [x1, y1, x2, y2]
         cloth: torch.Tensor,  # (B, cloth_channels, H, W)
+        generator: Optional[torch.Generator] = None,  # dropout masks in training
     ) -> torch.Tensor:
         B, C, H, W = input_tex.shape
         pooled = roi_align(input_tex.permute(0, 2, 3, 1), rois,
@@ -54,6 +55,7 @@ class TextureModule(nn.Module):
         # (B, R, h, w, C) is a view of the (B, R, C, h, w) result
         pooled = pooled.permute(0, 1, 4, 2, 3).reshape(
             B, self.num_roi * C, self.roi_size, self.roi_size)
-        encoded = self.UNetDown_0(pooled)
+        encoded = self.UNetDown_0(pooled, generator)
         upsampled = resize_nearest(encoded, H, W)
-        return self.UnetGenerator_0(torch.cat([upsampled, cloth.to(upsampled.dtype)], dim=1))
+        return self.UnetGenerator_0(torch.cat([upsampled, cloth.to(upsampled.dtype)], dim=1),
+                                   generator)

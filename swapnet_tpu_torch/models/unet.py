@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from swapnet_tpu_torch.models.layers import (
-    Conv, ConvTranspose, Norm, generator_or_default, leaky_relu)
+    Conv, ConvTranspose, Dropout, Norm, generator_or_default, leaky_relu)
 
 
 class UnetGenerator(nn.Module):
@@ -57,9 +57,10 @@ class UnetGenerator(nn.Module):
             if i > 0:
                 self.add_module(f"up_norm_{i}", Norm(norm_type, out_ch, init_gain, g))
         self.dropouts = nn.ModuleDict({
-            str(i): nn.Dropout(0.5) for i in range(4, n - 1) if use_dropout})
+            str(i): Dropout(0.5) for i in range(4, n - 1) if use_dropout})
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training mode."""
         n = self.num_downs
         h = x.to(self.dtype)
         inputs = []
@@ -76,6 +77,6 @@ class UnetGenerator(nn.Module):
             if i > 0:
                 u = self.get_submodule(f"up_norm_{i}")(u)
                 if str(i) in self.dropouts:
-                    u = self.dropouts[str(i)](u)
+                    u = self.dropouts[str(i)](u, generator)
                 u = torch.cat([inputs[i], u], dim=1)
         return torch.tanh(u)

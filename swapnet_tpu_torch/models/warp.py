@@ -50,28 +50,30 @@ class WarpModule(nn.Module):
         self.DualUNetUp_2 = DualUNetUp(384, 64, **kw)
         self.UpsamplePadConvTanh_0 = UpsamplePadConvTanh(192, cloth_channels, **kw)
 
-    def forward(self, body: torch.Tensor, cloth: torch.Tensor) -> torch.Tensor:
-        """body (B, body_ch, H, W), cloth (B, cloth_ch, H, W) -> (B, cloth_ch, H, W)."""
+    def forward(self, body: torch.Tensor, cloth: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """body (B, body_ch, H, W), cloth (B, cloth_ch, H, W) -> (B, cloth_ch, H, W);
+        ``generator`` draws the dropout masks in training mode."""
         if min(body.shape[2], body.shape[3]) < 64:
             # six halvings of the cloth encoder leave nothing below 64
             raise ValueError(f"WarpModule needs height/width >= 64, got {tuple(body.shape[2:])}")
         d = [self.get_submodule(f"UNetDown_{k}") for k in range(10)]
         body = body.to(self.dtype)
         cloth = cloth.to(self.dtype)
-        body_d1 = d[0](body)
-        body_d2 = d[1](body_d1)
-        body_d3 = d[2](body_d2)
-        body_d4 = d[3](body_d3)
-        cloth_d1 = d[4](cloth)
-        cloth_d2 = d[5](cloth_d1)
-        cloth_d3 = d[6](cloth_d2)
-        cloth_d4 = d[7](cloth_d3)
-        cloth_d5 = d[8](cloth_d4)
-        cloth_d6 = d[9](cloth_d5)
+        body_d1 = d[0](body, generator)
+        body_d2 = d[1](body_d1, generator)
+        body_d3 = d[2](body_d2, generator)
+        body_d4 = d[3](body_d3, generator)
+        cloth_d1 = d[4](cloth, generator)
+        cloth_d2 = d[5](cloth_d1, generator)
+        cloth_d3 = d[6](cloth_d2, generator)
+        cloth_d4 = d[7](cloth_d3, generator)
+        cloth_d5 = d[8](cloth_d4, generator)
+        cloth_d6 = d[9](cloth_d5, generator)
         cloth_u2 = self.UNetUp_1(self.UNetUp_0(cloth_d6))
         x = torch.cat([body_d4, cloth_u2], dim=1)
         for k in range(4):
-            x = self.get_submodule(f"ResidualBlock_{k}")(x)
+            x = self.get_submodule(f"ResidualBlock_{k}")(x, generator)
         x = self.DualUNetUp_0(x, body_d3, cloth_d3)
         x = self.DualUNetUp_1(x, body_d2, cloth_d2)
         x = self.DualUNetUp_2(x, body_d1, cloth_d1)

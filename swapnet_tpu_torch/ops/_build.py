@@ -5,7 +5,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  The library lands in ``swapnet_tpu_torch/build/`` (listed in
 ``.gitignore``) under a name that carries a hash of the source and flags, so
 an edited source is rebuilt and an unchanged one is reused.  ``build``
-starts one ``nvcc`` per source, all at once, and waits for all of them.
+starts one ``nvcc`` per source, all at once, and waits for all of them,
+each at most ``BUILD_TIMEOUT_S``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+BUILD_TIMEOUT_S = 600  # per nvcc process; a build takes seconds
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -67,7 +70,13 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         running[name] = (proc, tmp, out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in running.items():
-        logs[name] = proc.communicate()[0]
+        try:
+            logs[name] = proc.communicate(timeout=BUILD_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            logs[name] = proc.communicate()[0]
+            failed.append(f"{name}: nvcc did not finish in {BUILD_TIMEOUT_S} s")
+            continue
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:

@@ -13,6 +13,10 @@ the features are NCHW and the output (B, R, C, out_h, out_w), which the
 texture stage views as (B, R*C, out_h, out_w); the permutes between the two
 are views, so a NCHW caller pays no copy.
 
+Both forms are differentiable in the features: the plain form through
+autograd, the kernel through ``_RoiAlignKernel``, whose backward is the JAX
+package's rule in plain torch.  Neither gives the ROIs a gradient.
+
 Both forms accumulate in float32 and return the features' type (or
 ``dtype`` when given).  ``roi_align.launches`` counts kernel launches.
 """
@@ -56,18 +60,24 @@ def _axis_weights(
     return w.sum(dim=-2) / sampling_ratio
 
 
-def _plain_nchw(feats, rois, output_size, spatial_scale, sampling_ratio):
-    """(B, C, H, W) features -> (B, R, C, out_h, out_w), separable form."""
+def _roi_weights(rois, H, W, output_size, spatial_scale, sampling_ratio):
+    """The dense (B, R, out_h, H) and (B, R, out_w, W) axis weights."""
     if sampling_ratio < 1:
         raise ValueError("sampling_ratio must be >= 1 (the reference uses 1)")
-    _, _, H, W = feats.shape
     out_h, out_w = output_size
-    r = rois.to(torch.float32) * spatial_scale
+    r = rois.detach().to(torch.float32) * spatial_scale
     x1, y1, x2, y2 = r.unbind(-1)
     roi_w = torch.clamp(x2 - x1, min=1.0)
     roi_h = torch.clamp(y2 - y1, min=1.0)
-    wy = _axis_weights(y1, roi_h / out_h, out_h, H, sampling_ratio)  # (B,R,oh,H)
-    wx = _axis_weights(x1, roi_w / out_w, out_w, W, sampling_ratio)  # (B,R,ow,W)
+    wy = _axis_weights(y1, roi_h / out_h, out_h, H, sampling_ratio)
+    wx = _axis_weights(x1, roi_w / out_w, out_w, W, sampling_ratio)
+    return wy, wx
+
+
+def _plain_nchw(feats, rois, output_size, spatial_scale, sampling_ratio):
+    """(B, C, H, W) features -> (B, R, C, out_h, out_w), separable form."""
+    _, _, H, W = feats.shape
+    wy, wx = _roi_weights(rois, H, W, output_size, spatial_scale, sampling_ratio)
     tmp = torch.einsum("brih,bchw->brciw", wy, feats.to(torch.float32))
     return torch.einsum("brciw,brjw->brcij", tmp, wx).to(feats.dtype)
 
@@ -115,6 +125,28 @@ def _launch(feats, rois, output_size, spatial_scale, sampling_ratio):
     return out
 
 
+class _RoiAlignKernel(torch.autograd.Function):
+    """The kernel with the JAX package's gradient rule
+    (``_roi_align_pallas_bwd``): d features = Wy^T . g . Wx, the transposed
+    interpolation products, in plain torch (the JAX package runs them in
+    XLA; there is no backward kernel).  The ROIs get no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, rois, output_size, spatial_scale, sampling_ratio):
+        ctx.meta = (feats.shape, feats.dtype, output_size, spatial_scale, sampling_ratio)
+        ctx.save_for_backward(rois)
+        return _launch(feats, rois, output_size, spatial_scale, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rois,) = ctx.saved_tensors
+        (_, _, H, W), dtype, output_size, spatial_scale, sampling_ratio = ctx.meta
+        wy, wx = _roi_weights(rois, H, W, output_size, spatial_scale, sampling_ratio)
+        tmp = torch.einsum("brcij,brjw->brciw", g.to(torch.float32), wx)
+        dfeats = torch.einsum("brih,brciw->bchw", wy, tmp).to(dtype)
+        return dfeats, None, None, None, None
+
+
 def roi_align(
     features: torch.Tensor,  # (B, H, W, C)
     rois: torch.Tensor,  # (B, R, 4) [x1, y1, x2, y2]
@@ -129,8 +161,8 @@ def roi_align(
     if dtype is not None:
         feats = feats.to(dtype)
     if feats.device.type == "cuda":
-        out = _launch(feats.contiguous(), rois.to(torch.float32).contiguous(),
-                      output_size, spatial_scale, sampling_ratio)
+        out = _RoiAlignKernel.apply(feats.contiguous(), rois.to(torch.float32).contiguous(),
+                                    output_size, spatial_scale, sampling_ratio)
     elif feats.device.type == "cpu":
         out = _plain_nchw(feats, rois, output_size, spatial_scale, sampling_ratio)
     else:

@@ -5,7 +5,8 @@ norm, ``batch_stats``.  The port's submodules carry the Flax names, so a
 Flax path ``A/B/kernel`` is the port's submodule ``A.B``; what a leaf
 becomes depends on that submodule's type:
 
-* ``Conv``: kernel HWIO -> weight OIHW; bias as is.
+* ``Conv`` (layers, discriminators) and ``Conv3x3`` (the VGG): kernel HWIO
+  -> weight OIHW; bias as is.
 * ``ConvTranspose``: the JAX kernel is stored spatially pre-flipped as HWOI
   (4, 4, O, I); flip it back and lay it out as torch's (I, O, kh, kw).
   This inverts ``swapnet_tpu/utils/porter.py::convT_kernel``.  A wrong
@@ -23,13 +24,16 @@ inverse, used to write checkpoints in the JAX package's layout.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from swapnet_tpu_torch.models.layers import Conv, ConvTranspose
+from swapnet_tpu_torch.models.vgg import Conv3x3
+
+_CONVS = (Conv, Conv3x3)
 
 _NOT_IN_JAX = "num_batches_tracked"
 
@@ -50,7 +54,7 @@ def _tensor(x) -> torch.Tensor:
 
 def _to_torch(sub: nn.Module, leaf: str, kind: str) -> str:
     """The state_dict suffix of a JAX leaf, for a submodule of ``sub``'s type."""
-    if kind == "params" and isinstance(sub, (Conv, ConvTranspose)) and leaf in ("kernel", "bias"):
+    if kind == "params" and isinstance(sub, _CONVS + (ConvTranspose,)) and leaf in ("kernel", "bias"):
         return "weight" if leaf == "kernel" else "bias"
     if isinstance(sub, nn.BatchNorm2d):
         names = ({"scale": "weight", "bias": "bias"} if kind == "params"
@@ -61,7 +65,7 @@ def _to_torch(sub: nn.Module, leaf: str, kind: str) -> str:
 
 
 def _convert(sub: nn.Module, suffix: str, value: torch.Tensor) -> torch.Tensor:
-    if suffix == "weight" and isinstance(sub, Conv):
+    if suffix == "weight" and isinstance(sub, _CONVS):
         return value.permute(3, 2, 0, 1).contiguous()
     if suffix == "weight" and isinstance(sub, ConvTranspose):
         return value.permute(3, 2, 0, 1).flip(2, 3).contiguous()
@@ -121,11 +125,11 @@ def jax_variables_from_module(module: nn.Module) -> Dict[str, dict]:
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = value.detach().float().cpu().contiguous().numpy()
+        node[leaf] = value.detach().float().cpu().numpy().copy()  # a snapshot, not a view
 
     for name, sub in module.named_modules():
         path = name.split(".") if name else []
-        if isinstance(sub, (Conv, ConvTranspose)):
+        if isinstance(sub, _CONVS + (ConvTranspose,)):
             w = sub.weight
             kernel = w.flip(2, 3).permute(2, 3, 1, 0) if isinstance(sub, ConvTranspose) \
                 else w.permute(2, 3, 1, 0)
@@ -138,3 +142,23 @@ def jax_variables_from_module(module: nn.Module) -> Dict[str, dict]:
             put(stats, path, "mean", sub.running_mean)
             put(stats, path, "var", sub.running_var)
     return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def texture_state_from_jax(system, g_params: Mapping, d_params: Optional[Mapping] = None,
+                           vgg_variables: Optional[Mapping] = None, seed: int = 0,
+                           g_extra: Optional[Mapping] = None):
+    """The port's ``TextureSystem`` state with the weights of a JAX
+    ``GANTrainState``: its ``g_params`` (and ``g_extra`` batch statistics),
+    ``d_params`` and ``frozen["vgg"]``, as nested dicts of arrays.  The
+    weights are copied into the modules of ``system.init_state(seed)``, whose
+    optimizers start from zero moments, as the JAX state's do after
+    ``init_state``."""
+    state = system.init_state(seed)
+    parts = [(state.G, {"params": g_params, **(g_extra or {})})]
+    if d_params is not None:
+        parts.append((state.D, {"params": d_params}))
+    if vgg_variables is not None:
+        parts.append((state.vgg, vgg_variables))
+    for module, variables in parts:
+        module.load_state_dict(state_dict_from_jax(module, variables), strict=True)
+    return state

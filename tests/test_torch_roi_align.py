@@ -10,8 +10,11 @@ port's plain form.  Tolerances:
     the float32 result on the same bf16 features.  The JAX XLA form instead
     rounds its weights and intermediate to bf16, so against it the bound is
     four bf16 ulps of the largest magnitude.
+  * gradients, float32: 1e-5 absolute, as above (each feature gradient sums
+    at most a few hundred weighted cotangents of unit scale).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +22,7 @@ import torch
 
 from swapnet_tpu.ops.pallas_kernels import roi_align_pallas
 from swapnet_tpu.ops.roi_align import roi_align as jax_roi_align
-from swapnet_tpu.ops.roi_align import roi_align_reference
+from swapnet_tpu.ops.roi_align import _roi_align_pallas_bwd, roi_align_reference
 from swapnet_tpu_torch.ops import _build
 from swapnet_tpu_torch.ops import roi_align as port_ops
 from swapnet_tpu_torch.ops.roi_align import roi_align, roi_align_plain
@@ -152,3 +155,41 @@ def test_library_name_follows_source_hash(monkeypatch, tmp_path):
     src.write_text("// two")
     assert _build.library_path("k") != first
     assert first.parent == _build.BUILD and first.name.startswith("libk-")
+
+
+def _grad_case(seed, kind, dtype=np.float32):
+    feats, rois = _inputs(seed, kind, 2, 24, 20, 3, 5)
+    g = np.random.RandomState(seed + 1).randn(2, 5, 8, 6, 3).astype(np.float32)
+    return feats.astype(dtype), rois, g
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_gradient_matches_jax_grad(kind):
+    """The CPU path's gradient (autograd through the separable form) against
+    jax.grad of roi_align; the ROIs get none."""
+    feats, rois, g = _grad_case(8, kind)
+    ref = jax.grad(lambda f: jnp.sum(jax_roi_align(f, jnp.asarray(rois), (8, 6),
+                                                   implementation="xla") * g))(
+        jnp.asarray(feats))
+    ft = torch.from_numpy(feats).requires_grad_(True)
+    rt = torch.from_numpy(rois).requires_grad_(True)
+    (roi_align(ft, rt, (8, 6)) * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(ft.grad.numpy(), np.asarray(ref), atol=F32_ATOL, rtol=0)
+    assert rt.grad is None or not rt.grad.any()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_autograd_rule_matches_jax_custom_vjp(kind, monkeypatch):
+    """The backward of the kernel's autograd function (the card's path) is
+    the JAX custom VJP's Wy^T . g . Wx.  The forward launch is replaced by
+    the plain form here, so the rule runs on the CPU."""
+    feats, rois, g = _grad_case(9, kind)
+    monkeypatch.setattr(port_ops, "_launch", port_ops._plain_nchw)
+    ft = torch.from_numpy(feats.transpose(0, 3, 1, 2).copy()).requires_grad_(True)
+    out = port_ops._RoiAlignKernel.apply(ft, torch.from_numpy(rois), (8, 6), 1.0, 1)
+    out.backward(torch.from_numpy(g.transpose(0, 1, 4, 2, 3).copy()))
+    ref, none = _roi_align_pallas_bwd((8, 6), 1.0, feats.shape, "float32", jnp.asarray(rois),
+                                      jnp.asarray(g))
+    assert none is None
+    np.testing.assert_allclose(ft.grad.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
+                               atol=F32_ATOL, rtol=0)
