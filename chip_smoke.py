@@ -3,20 +3,27 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
-imports nothing of JAX or of the JAX package.  Phases, each of which raises
-on failure (the script then exits non-zero and prints no result), each
-printing its elapsed time:
+Needs one CUDA card, the CUDA toolkit (``nvcc``, ``cuobjdump``) and this
+checkout; it imports nothing of JAX or of the JAX package.  Phases, each of
+which raises on failure (the script then exits non-zero and prints no
+result), each printing its elapsed time.  A watchdog bounds every phase
+(``PHASE_BUDGET_S``): a phase that overruns its budget, say a kernel that
+never returns, ends the run with exit code 1 after ``faulthandler`` has
+printed every thread's stack to stderr, below the phase's start line.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of both paths from ``swapnet_tpu_torch/csrc``, one
-   ``nvcc`` per source, all at once;
+   ``nvcc`` per source, all at once, and check in ``cuobjdump -sass`` that
+   each tensor-core conv3x3 instantiation holds ``HMMA`` instructions;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
    at the paths' shapes, in float32 (TF32 off) and bfloat16, then timed
    (device time by CUDA-graph replay) beside the plain version, a library
    call where one computes the same function, and the least time the card
    could take: ROI-Align at B=1 and 8; conv3x3 at the 13 forward and 13
-   input-gradient shapes of the VGG16 at 128^2, B=8;
+   input-gradient shapes of the VGG16 at 128^2, B=8, at edge shapes (B 1
+   and 2, 8^2, 2^2, 5x7, C=3, N=3, ragged M, N and K), and split-K: each
+   slice's partial sums against the plain form's, the unsplit sum against
+   the split one, and a split conv run twice to equal bits;
 4. ROI-Align's gradient through its autograd function on the card against
    the plain form's autograd gradient;
 5. serving at full width: both generators at 128^2 from a seeded
@@ -29,7 +36,8 @@ printing its elapsed time:
 7. training at full width: ``TextureSystem`` at 128^2, batch 8, bfloat16,
    ``train_step`` for ``TRAIN_STEPS`` steps from seeded generators, with the
    launch counts set to 0 just before and read just after (39 conv3x3 and 1
-   ROI-Align launch per step), and a profile of one step;
+   ROI-Align launch per step, and the planned split-K reduces), and a
+   profile of one step;
 8. one float32 train step (TF32 off) at batch 2 on the card against the
    same step on the CPU: every metric and every updated parameter.
 
@@ -39,8 +47,10 @@ The last lines are the card line, the kernels' JSON line and
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -80,10 +90,43 @@ METRIC_REL_TOL = 1e-4  # train step card vs CPU in float32: losses
 # may differ by up to 2 lr.  Everywhere else the two agree closely
 PARAM_MEDIAN_TOL_LR = 1e-3  # the median element
 PARAM_SHARE_TOL = 1e-2  # the share of elements further apart than lr / 100
+# conv3x3 edge shapes, (B, H, W, C, N, relu): batch 1 and 2, 8^2, 2^2 and a
+# non-square image (M not a multiple of 128), C = 3 and N = 3 (element-wise
+# gathers, the narrow tile), C and N multiples of 8 but not of 32 (a ragged
+# last K step and N tile; the last two with a ragged M on the tiles that run
+# two blocks per SM), an N that is not a multiple of 8, an odd N in a split
+EDGE_CONVS = [(1, 8, 8, 512, 512, True), (2, 2, 2, 512, 512, False), (2, 5, 7, 64, 128, True),
+              (1, 5, 7, 3, 64, True), (2, 5, 7, 64, 3, False), (1, 2, 2, 3, 3, True),
+              (2, 9, 11, 24, 40, True), (1, 16, 16, 512, 20, False), (1, 8, 8, 256, 13, True),
+              (2, 95, 97, 24, 72, True), (2, 95, 97, 24, 40, False)]
+# split-K checks, (B, H, W, C, N): the two deep VGG shapes and an odd N
+SPLIT_CONVS = [(BATCH, 16, 16, 512, 512), (BATCH, 8, 8, 512, 512), (1, 8, 8, 256, 13)]
+# watchdog per phase, seconds: each at least 10 times what the phase takes on
+# an H100 (0.1-15 s; the cold build ~9 s), all of them together within the
+# run's 1200 s
+PHASE_BUDGET_S = {"build": 300, "roi_align vs plain": 60, "conv3x3 vs plain": 180,
+                  "roi_align gradient": 30, "checkpoints": 90, "serving": 90,
+                  "serving profile": 30, "serving card vs cpu": 90, "training": 90,
+                  "training card vs cpu": 120}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(name: str, fn, *args):
+    """Run one phase under its watchdog: past ``PHASE_BUDGET_S[name]``
+    seconds faulthandler prints every thread's stack and exits with 1."""
+    budget = PHASE_BUDGET_S[name]
+    log(f"[phase] {name} starts (watchdog {budget} s)")
+    faulthandler.dump_traceback_later(budget, exit=True)
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    log(f"[phase] {name} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def card_line() -> str:
@@ -174,11 +217,43 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build(list(KERNEL_PATHS))
     log(f"[build] {len(KERNEL_PATHS)} CUDA source(s) ready in {time.perf_counter() - t0:.2f} s "
-        f"({', '.join(logs) or 'already built'} compiled now)")
+        f"({', '.join(logs) + ' compiled now' if logs else 'already built'})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {line.strip()}")
+    hmma = sass_hmma_counts(_build.library_path("conv3x3"))
+    tc = {fn: n for fn, n in hmma.items() if "conv3x3_tc_kernel" in fn}
+    log(f"[build] conv3x3 SASS, HMMA instructions per kernel: "
+        f"{ {short_name(fn): n for fn, n in hmma.items()} }")
+    if not tc or min(tc.values()) == 0:
+        raise AssertionError(f"the tensor-core conv3x3 kernels hold no HMMA: {tc}")
+
+
+def short_name(fn: str) -> str:
+    """A mangled kernel name cut to its name and tile arguments."""
+    for base in ("conv3x3_tc_kernel", "conv3x3_splitk_reduce", "conv3x3_kernel"):
+        if base in fn:
+            tile = fn.split("TcTileILi", 1)[1].split("EEE")[0] if "TcTile" in fn else ""
+            return base + (f"<{tile.replace('ELi', ',').replace('ELb', ',')}>" if tile else "")
+    return fn
+
+
+def sass_hmma_counts(library) -> dict:
+    """HMMA instructions in ``cuobjdump -sass`` of a built library, by
+    kernel (mangled name)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -380,7 +455,9 @@ def phase_profile(fn, what: str) -> None:
         ms = evt.device_time / 1e3
         name = evt.name
         kind = ("roi_align (CUDA kernel)" if "roi_align_kernel" in name
-                else "conv3x3 (CUDA kernel)" if "conv3x3_kernel" in name
+                else "conv3x3 (tensor-core kernel)" if "conv3x3_tc_kernel" in name
+                else "conv3x3 (split-K reduce)" if "conv3x3_splitk_reduce" in name
+                else "conv3x3 (CUDA-core kernel)" if "conv3x3_kernel" in name
                 else "convolution (cuDNN)" if ("conv" in name.lower() or "xmma" in name or "cutlass" in name
                                        or "gemm" in name.lower())
                 else "layout transpose" if ("nchwToNhwc" in name or "nhwcToNchw" in name)
@@ -420,13 +497,13 @@ def conv_rows():
     return rows
 
 
-def conv_operands(gen, S: int, C: int, N: int, grad: bool, dtype, B: int = BATCH):
-    """x (B, S, S, C), the GEMM's weight matrix and bias on the card."""
+def conv_operands(gen, H: int, W: int, C: int, N: int, grad: bool, dtype, B: int = BATCH):
+    """x (B, H, W, C), the GEMM's weight matrix and bias on the card."""
     import torch
 
     from swapnet_tpu_torch.ops.conv3x3 import input_grad_matrix, weight_matrix
 
-    x = torch.randn(B, S, S, C, generator=gen).to("cuda", dtype)
+    x = torch.randn(B, H, W, C, generator=gen).to("cuda", dtype)
     if grad:  # the VGG weight is (C_out=C, C_in=N, 3, 3); the GEMM maps C -> N
         w = (torch.randn(C, N, 3, 3, generator=gen) / (9 * N) ** 0.5).cuda()
         wmat, bias = input_grad_matrix(w, dtype), torch.zeros(N, dtype=dtype, device="cuda")
@@ -438,6 +515,79 @@ def conv_operands(gen, S: int, C: int, N: int, grad: bool, dtype, B: int = BATCH
     return x, wmat, bias, w_direct
 
 
+def plan_of(x, wmat):
+    from swapnet_tpu_torch.ops.conv3x3 import conv3x3_plan
+
+    B, H, W, C = x.shape
+    return conv3x3_plan(B, H, W, C, wmat.shape[1], x.dtype)
+
+
+def conv_error(x, wmat, bias, relu: bool, splits=None):
+    """The kernel against the plain form on the same tensors: (max error,
+    whether every element is within the limit, the limit, the output)."""
+    import torch
+
+    from swapnet_tpu_torch.ops.conv3x3 import conv3x3_gemm, conv3x3_gemm_plain
+
+    out = conv3x3_gemm(x, wmat, bias, relu, splits)
+    got = out.float()
+    ref = conv3x3_gemm_plain(x, wmat, bias, relu).float()
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    if x.dtype == torch.float32:
+        return err.max().item(), bool((err <= CONV_F32_TOL).all()), f"{CONV_F32_TOL:g}", out
+    # the float32 sums (which differ by up to the float32 limit where terms
+    # cancel) may straddle a bf16 rounding boundary, once for the sum and
+    # once after the bias: two ulps of each
+    acc = conv3x3_gemm_plain(x.float(), wmat.float(), torch.zeros_like(bias).float(), False)
+    ok = bool((err <= BF16_ULP * (acc.abs() + ref.abs()) + CONV_F32_TOL).all())
+    return err.max().item(), ok, f"2 bf16 ulps of |sum| + |result|, + {CONV_F32_TOL:g}", out
+
+
+def plan_text(plan) -> str:
+    return f"{plan.tile} S={plan.splits} blocks={plan.blocks}"
+
+
+def check_split(gen, B: int, H: int, W: int, C: int, N: int) -> float:
+    """Split-K on the card: each slice's float32 partial sums against the
+    plain form's, the sum of the planned slices (in order) against the
+    unsplit sum, both within the float32 limit; the unsplit and the split
+    conv against the plain form; the split conv twice, to equal bits."""
+    import torch
+
+    from swapnet_tpu_torch.ops.conv3x3 import conv3x3_partials, conv3x3_partials_plain
+
+    x, wmat, bias, _ = conv_operands(gen, H, W, C, N, False, torch.bfloat16, B)
+    plan = plan_of(x, wmat)
+    S = plan.splits
+    if S < 2:
+        raise AssertionError(f"B={B} {H}x{W} {C}->{N} was meant to split: {plan}")
+    parts = conv3x3_partials(x, wmat, S)
+    whole = conv3x3_partials(x, wmat, 1)[0]
+    slices_err = (parts - conv3x3_partials_plain(x, wmat, S)).abs().max().item()
+    total = parts[0].clone()
+    for s in range(1, S):
+        total += parts[s]
+    sum_err = (total - whole).abs().max().item()
+    errs = {}
+    for splits in (1, S):
+        err, ok, limit, _ = conv_error(x, wmat, bias, True, splits)
+        errs[splits] = err
+        if not ok:
+            raise AssertionError(f"conv3x3 S={splits} disagrees with plain: B={B} {H}x{W} "
+                                 f"{C}->{N} max {err:.3e} (limit {limit})")
+    first = conv_error(x, wmat, bias, True)[3]
+    again = conv_error(x, wmat, bias, True)[3]
+    same = torch.equal(first, again)
+    log(f"[conv3x3] split B={B} {H}x{W} {C}->{N} bf16, {plan_text(plan)}: slices vs plain "
+        f"slices {slices_err:.3e}, sum of {S} slices vs unsplit sum {sum_err:.3e} (limit "
+        f"{CONV_F32_TOL:g}); vs plain S=1 {errs[1]:.3e}, S={S} {errs[S]:.3e}; repeat "
+        f"bitwise equal: {same}")
+    if slices_err > CONV_F32_TOL or sum_err > CONV_F32_TOL or not same:
+        raise AssertionError(f"split-K check failed at B={B} {H}x{W} {C}->{N}")
+    return max(errs.values())
+
+
 def phase_conv3x3() -> dict:
     import torch
     import torch.nn.functional as F
@@ -446,35 +596,36 @@ def phase_conv3x3() -> dict:
 
     gen = torch.Generator().manual_seed(3)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    limits = f"limits {CONV_F32_TOL:g}; 2 bf16 ulps + {CONV_F32_TOL:g}"
     for label, S, C, N, relu, grad in conv_rows():
         for dtype in (torch.float32, torch.bfloat16):
-            x, wmat, bias, _ = conv_operands(gen, S, C, N, grad, dtype)
-            got = conv3x3_gemm(x, wmat, bias, relu).float()
-            ref = conv3x3_gemm_plain(x, wmat, bias, relu).float()
-            torch.cuda.synchronize()
-            err = (got - ref).abs()
-            if dtype == torch.float32:
-                ok, limit = bool((err <= CONV_F32_TOL).all()), f"{CONV_F32_TOL:g}"
-            else:
-                # the float32 sums (which differ by up to the float32 limit
-                # where terms cancel) may straddle a bf16 rounding boundary,
-                # once for the sum and once after the bias: two ulps of each
-                acc = conv3x3_gemm_plain(x.float(), wmat.float(), torch.zeros_like(bias).float(),
-                                         False)
-                ok = bool((err <= BF16_ULP * (acc.abs() + ref.abs()) + CONV_F32_TOL).all())
-                limit = f"2 bf16 ulps of |sum| + |result|, + {CONV_F32_TOL:g}"
-            worst[dtype] = max(worst[dtype], err.max().item())
+            x, wmat, bias, _ = conv_operands(gen, S, S, C, N, grad, dtype)
+            err, ok, limit, _ = conv_error(x, wmat, bias, relu)
+            worst[dtype] = max(worst[dtype], err)
             if not ok:
                 raise AssertionError(f"conv3x3 kernel disagrees with plain: {label} {dtype} "
-                                     f"max {err.max().item():.3e} (limit {limit})")
-        log(f"[conv3x3] {label} B={BATCH}: max|kernel-plain| f32 {worst[torch.float32]:.3e}, "
-            f"bf16 {worst[torch.bfloat16]:.3e} so far (limits {CONV_F32_TOL:g}; 2 bf16 ulps + "
-            f"{CONV_F32_TOL:g})")
+                                     f"max {err:.3e} (limit {limit})")
+        log(f"[conv3x3] {label} B={BATCH} ({plan_text(plan_of(x, wmat))}): max|kernel-plain| "
+            f"f32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} so far ({limits})")
+    for B, H, W, C, N, relu in EDGE_CONVS:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wmat, bias, _ = conv_operands(gen, H, W, C, N, False, dtype, B)
+            err, ok, limit, _ = conv_error(x, wmat, bias, relu)
+            errs[str(dtype)[6:]] = f"{err:.3e}"
+            worst[dtype] = max(worst[dtype], err)
+            if not ok:
+                raise AssertionError(f"conv3x3 kernel disagrees with plain: edge B={B} {H}x{W} "
+                                     f"{C}->{N} {dtype} max {err:.3e} (limit {limit})")
+        log(f"[conv3x3] edge B={B} {H}x{W} {C}->{N} relu={relu} ({plan_text(plan_of(x, wmat))}): "
+            f"max|kernel-plain| {errs} ({limits})")
+    for B, H, W, C, N in SPLIT_CONVS:
+        worst[torch.bfloat16] = max(worst[torch.bfloat16], check_split(gen, B, H, W, C, N))
 
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0.0)
     by = {"operations": 0.0, "bytes": 0.0}  # bound time by what bounds each launch
     for label, S, C, N, relu, grad in conv_rows():
-        x, wmat, bias, w_direct = conv_operands(gen, S, C, N, grad, torch.bfloat16)
+        x, wmat, bias, w_direct = conv_operands(gen, S, S, C, N, grad, torch.bfloat16)
         x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, as cuDNN takes it
 
         def library():
@@ -494,9 +645,9 @@ def phase_conv3x3() -> dict:
             totals[key] += times * v
         totals["ops"] += times * 2 * BATCH * S * S * 9 * C * N
         by[bound_by] += times * bound_ms
-        log(f"[conv3x3] {label} B={BATCH} bf16: kernel_ms {ms:.6f}, plain_ms {plain_ms:.6f}, "
-            f"library_ms (cuDNN) {library_ms:.6f}, bound_ms {bound_ms:.6f} ({bound_by}); "
-            f"{2 * BATCH * S * S * 9 * C * N / ms / 1e9:.2f} TFLOP/s")
+        log(f"[conv3x3] {label} B={BATCH} bf16 ({plan_text(plan_of(x, wmat))}): kernel_ms "
+            f"{ms:.6f}, plain_ms {plain_ms:.6f}, library_ms (cuDNN) {library_ms:.6f}, bound_ms "
+            f"{bound_ms:.6f} ({bound_by}); {2 * BATCH * S * S * 9 * C * N / ms / 1e9:.2f} TFLOP/s")
     log(f"[conv3x3] one train step's 39 launches (13 fwd x 2 + 13 dx), bf16: kernel "
         f"{totals['ms']:.3f} ms ({totals['ops'] / totals['ms'] / 1e9:.2f} TFLOP/s), plain "
         f"{totals['plain_ms']:.3f} ms, cuDNN {totals['library_ms']:.3f} ms, bound "
@@ -561,7 +712,7 @@ def phase_train(card: str) -> dict:
 
     import torch
 
-    from swapnet_tpu_torch.ops.conv3x3 import conv3x3_bias_act
+    from swapnet_tpu_torch.ops.conv3x3 import conv3x3_bias_act, conv3x3_plan
     from swapnet_tpu_torch.ops.roi_align import roi_align
     from swapnet_tpu_torch.training.texture_system import TextureSystem
 
@@ -577,7 +728,11 @@ def phase_train(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    # the planned split-K convs of a step: forward ones twice, gradients once
+    reduces_per_step = sum((1 if grad else 2) for _, S, C, N, _, grad in conv_rows()
+                           if conv3x3_plan(BATCH, S, S, C, N, torch.bfloat16).splits > 1)
     conv3x3_bias_act.launches = roi_align.launches = 0  # the main path's run starts here
+    conv3x3_bias_act.splitk_reduces = 0
     t = time.perf_counter()
     history = []
     for _ in range(TRAIN_STEPS):
@@ -586,7 +741,7 @@ def phase_train(card: str) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 1e3 / TRAIN_STEPS
     launches = {"conv3x3": conv3x3_bias_act.launches, "roi_align": roi_align.launches}
-    # ... and ends here
+    reduces = conv3x3_bias_act.splitk_reduces  # ... and ends here
     for metrics in history:
         bad = {k: v.item() for k, v in metrics.items() if not math.isfinite(v.item())}
         if bad:
@@ -594,13 +749,17 @@ def phase_train(card: str) -> dict:
     if launches != {"conv3x3": 39 * TRAIN_STEPS, "roi_align": TRAIN_STEPS}:
         raise AssertionError(f"launches {launches} in {TRAIN_STEPS} steps, expected 39 "
                              "conv3x3 and 1 roi_align per step")
+    if reduces != reduces_per_step * TRAIN_STEPS:
+        raise AssertionError(f"{reduces} split-K reduces in {TRAIN_STEPS} steps, planned "
+                             f"{reduces_per_step} per step")
     last = {k: round(v.item(), 5) for k, v in history[-1].items()}
     log(f"[train] {TRAIN_STEPS} steps at 128^2, batch {BATCH}, bf16: {step_ms:.3f} ms/step, "
         f"{BATCH * 1e3 / step_ms:.1f} img/s (host clock around synchronised steps; {card})")
-    log(f"[train] launches in the main path's run: {launches}; max_memory_allocated "
+    log(f"[train] launches in the main path's run: {launches}, of which conv3x3 split-K "
+        f"reduces {reduces} ({reduces_per_step} per step, as planned); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B; last metrics {last}")
     phase_profile(lambda: system.train_step(state, batch), "one bf16 train step")
-    return {"launches": launches}
+    return {"launches": launches, "splitk_reduces": reduces}
 
 
 def _params(state):
@@ -679,21 +838,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    def timed(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        log(f"[phase] {name} took {time.perf_counter() - t0:.1f} s")
-        return out
-
     timed("build", phase_build)
     roi = timed("roi_align vs plain", phase_kernel_vs_plain)
     conv = timed("conv3x3 vs plain", phase_conv3x3)
     timed("roi_align gradient", phase_roi_align_grad)
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        warp_dir, tex_dir, n_params = write_checkpoints(root)
-        log(f"[slice] {n_params} parameters at 128^2 written as JAX-layout checkpoints in "
-            f"{time.perf_counter() - t0:.2f} s")
+        warp_dir, tex_dir, n_params = timed("checkpoints", write_checkpoints, root)
+        log(f"[slice] {n_params} parameters at 128^2 written as JAX-layout checkpoints")
         slice_ = timed("serving", phase_slice, warp_dir, tex_dir, card)
         timed("serving profile", phase_profile,
               lambda: slice_["svc"].swap(*slice_["single"]), "one batch-1 bf16 swap")
@@ -716,6 +867,8 @@ def main() -> int:
             "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"],
             "times_at": kernel["times_at"],
         })
+        if name == "conv3x3":
+            entries[-1]["splitk_reduces"] = train["splitk_reduces"]
     log("kernels: " + json.dumps(list(KERNEL_PATHS)))
     log(card)
     log(json.dumps({"kernels": entries}))

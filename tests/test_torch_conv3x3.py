@@ -137,3 +137,146 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
         port_ops._launch(x, torch.zeros(26, 4), bias, True)
     with pytest.raises(ValueError, match="cuda or cpu"):
         conv3x3_gemm(x.to("meta"), wmat, bias, True)
+
+
+# --- the kernel's plan and wrapper (no card needed) --------------------------
+
+# VGG16 convs at 128^2: (size, C_in, C_out); a train step at B=8 runs each
+# forward and its input gradient (C_out -> C_in, flipped weights)
+VGG_CONVS = [(128, 3, 64), (128, 64, 64), (64, 64, 128), (64, 128, 128),
+             (32, 128, 256), (32, 256, 256), (32, 256, 256),
+             (16, 256, 512), (16, 512, 512), (16, 512, 512),
+             (8, 512, 512), (8, 512, 512), (8, 512, 512)]
+VGG_GEMMS = ([pytest.param(s, c, n, id=f"fwd{c}-{n}@{s}-{i}") for i, (s, c, n) in enumerate(VGG_CONVS)]
+             + [pytest.param(s, n, c, id=f"dx{n}-{c}@{s}-{i}") for i, (s, c, n) in enumerate(VGG_CONVS)])
+# edge shapes (B, H, W, C, N): batch 1 and 2, 2^2 and a non-square image
+# (M not a multiple of 128), C = 3 and N = 3, C and N multiples of 8 but not
+# of 32, an N that is not a multiple of 8, an odd N in a split
+EDGE_SHAPES = [(1, 8, 8, 512, 512), (2, 2, 2, 512, 512), (2, 5, 7, 64, 128), (1, 5, 7, 3, 64),
+               (2, 5, 7, 64, 3), (1, 2, 2, 3, 3), (2, 9, 11, 24, 40), (1, 16, 16, 512, 20),
+               (1, 8, 8, 256, 13), (2, 95, 97, 24, 72)]
+
+
+def _bf16_plan(B, H, W, C, N):
+    plan = port_ops.conv3x3_plan(B, H, W, C, N, torch.bfloat16)
+    code, bm, bn, bk, resident = port_ops.TC_TILES[plan.tile]
+    tiles = -(-B * H * W // bm) * -(-N // bn)
+    return plan, tiles, bk, resident
+
+
+@pytest.mark.parametrize("S,C,N", VGG_GEMMS)
+def test_plan_split_fills_the_card_in_one_wave(S, C, N):
+    """Where K is split, the grid fits on the card at once (no second wave)
+    and no further slice would: the blocks fill at least 90% of the SMs."""
+    plan, tiles, _, resident = _bf16_plan(8, S, S, C, N)
+    assert plan.blocks == tiles * plan.splits
+    if plan.splits == 1:
+        return
+    assert tiles < port_ops.SMS
+    assert plan.blocks <= resident * port_ops.SMS
+    capped = plan.splits == plan.k_steps // port_ops.MIN_SLICE_STEPS
+    assert capped or plan.blocks + tiles > resident * port_ops.SMS
+    assert plan.blocks >= 0.9 * port_ops.SMS * resident
+
+
+@pytest.mark.parametrize("S,C,N", VGG_GEMMS)
+def test_plan_slices_hold_at_least_eight_steps(S, C, N):
+    plan, _, bk, _ = _bf16_plan(8, S, S, C, N)
+    assert plan.k_steps == -(-9 * C // bk)
+    bounds = port_ops.slice_bounds(plan.k_steps, plan.splits)
+    assert bounds[0][0] == 0 and bounds[-1][1] == plan.k_steps
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    if plan.splits > 1:
+        assert min(b - a for a, b in bounds) >= port_ops.MIN_SLICE_STEPS >= 8
+
+
+@pytest.mark.parametrize("S,C,N", VGG_GEMMS)
+def test_plan_workspace_bytes(S, C, N):
+    """float32 partial sums (splits, M, N) where split, none otherwise."""
+    plan, _, _, _ = _bf16_plan(8, S, S, C, N)
+    M = 8 * S * S
+    assert plan.workspace_bytes == (4 * plan.splits * M * N if plan.splits > 1 else 0)
+    assert plan.tile in port_ops.TC_TILES and port_ops.TC_TILES[plan.tile][2] >= min(N, 128)
+
+
+@pytest.mark.parametrize("S,C,N", VGG_GEMMS)
+def test_plan_float32_runs_the_cuda_core_form(S, C, N):
+    plan = port_ops.conv3x3_plan(8, S, S, C, N, torch.float32)
+    assert (plan.tile, plan.splits, plan.workspace_bytes) == ("cuda_core", 1, 0)
+    with pytest.raises(ValueError, match="unsplit"):
+        port_ops.conv3x3_plan(8, S, S, C, N, torch.float32, 2)
+
+
+@pytest.mark.parametrize("B,H,W,C,N", EDGE_SHAPES)
+def test_plan_at_edge_shapes(B, H, W, C, N):
+    plan, tiles, _, _ = _bf16_plan(B, H, W, C, N)
+    assert 1 <= plan.splits <= plan.k_steps and plan.blocks == tiles * plan.splits
+    forced = port_ops.conv3x3_plan(B, H, W, C, N, torch.bfloat16, 1)
+    assert (forced.tile, forced.splits, forced.workspace_bytes) == (plan.tile, 1, 0)
+    with pytest.raises(ValueError, match="splits"):
+        port_ops.conv3x3_plan(B, H, W, C, N, torch.bfloat16, plan.k_steps + 1)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,N", EDGE_SHAPES)
+def test_plain_form_matches_jax_at_edge_shapes(B, H, W, C, N, dtype):
+    """The plain form (what the card's kernels are held to) against the JAX
+    XLA form, and its split partial sums, summed, against the unsplit sum."""
+    jdt, tdt = DTYPES[dtype]
+    x, w, b, _ = _inputs(B * 1000 + H * 100 + C + N, B, H, W, C, N)
+    relu = N % 2 == 0
+    y_ref = jax_conv(*[jnp.asarray(a, jdt) for a in (x, w, b)], relu, "xla", False)
+    sums = np.asarray(jax_conv(*[jnp.asarray(a, jdt).astype(jnp.float32) for a in (x, w, 0 * b)],
+                               False, "xla", False))
+    xt, bt = _t(x, tdt), _t(b, tdt)
+    wmat = weight_matrix(_t(w.transpose(3, 2, 0, 1), torch.float32), tdt)
+    y = port_ops.conv3x3_gemm(xt, wmat, bt, relu)
+    assert y.dtype == tdt and tuple(y.shape) == (B, H, W, N)
+    _close("y", y.float(), y_ref, dtype, sums)
+    splits = port_ops.conv3x3_plan(B, H, W, C, N, torch.bfloat16).splits
+    parts = port_ops.conv3x3_partials_plain(xt, wmat, splits)
+    assert tuple(parts.shape) == (splits, B, H, W, N) and parts.dtype == torch.float32
+    whole = port_ops.conv3x3_gemm_plain(xt.float(), wmat.float(), torch.zeros(N), False)
+    np.testing.assert_allclose(parts.sum(0).numpy(), whole.numpy(), rtol=0,
+                               atol=F32_REL * max(1.0, whole.abs().max().item()))
+
+
+def test_wrapper_refuses_mixed_devices_types_and_layouts_without_a_card():
+    x = torch.zeros(1, 8, 8, 16, dtype=torch.bfloat16)
+    wmat = torch.zeros(144, 8, dtype=torch.bfloat16)
+    bias = torch.zeros(8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        port_ops._launch(x, wmat.to("meta"), bias, True)  # a CPU tensor beside another device
+    with pytest.raises(ValueError, match="same CUDA device"):
+        port_ops.conv3x3_partials(x, wmat, 1)
+    with pytest.raises(TypeError):
+        port_ops._launch(x.half(), wmat.half(), bias.half(), True)
+    with pytest.raises(TypeError, match="one type"):
+        port_ops._launch(x, wmat, bias.float(), True)
+    with pytest.raises(TypeError, match="bfloat16 form"):
+        port_ops.conv3x3_partials(x.float(), wmat.float(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_ops._launch(x.transpose(1, 2), wmat, bias, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_ops._launch(x, torch.zeros(8, 144, dtype=torch.bfloat16).t(), bias, True)
+    with pytest.raises(TypeError):
+        port_ops.conv3x3_plan(1, 8, 8, 16, 8, torch.float16)
+
+
+def test_chip_smoke_watchdog_ends_an_overrunning_phase():
+    """A phase past its budget ends the run loudly: non-zero exit, every
+    thread's stack on stderr, after the phase's start line."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import time, chip_smoke\n"
+            "chip_smoke.PHASE_BUDGET_S['nap'] = 1\n"
+            "chip_smoke.timed('nap', time.sleep, 60)\n")
+    run = subprocess.run([sys.executable, "-B", "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=60)
+    assert run.returncode != 0
+    assert "[phase] nap starts (watchdog 1 s)" in run.stdout
+    assert "Timeout" in run.stderr and "in timed" in run.stderr
+    assert "took" not in run.stdout
